@@ -1,10 +1,10 @@
-// sphnative — native host-runtime companion library for tpusph.
+// sphnative — native host-runtime companion library for sphjax.
 //
 // The reference's host runtime is C++ (driver main.cpp, renderer display.cpp,
 // host-side state init in simulator.cu:411-460). This library provides the
-// TPU framework's native equivalents of those host-side pieces; the TPU
-// compute path itself is JAX/XLA/Pallas. Exposed via a C ABI and loaded from
-// Python with ctypes (tpusph/utils/native.py); every entry point has a pure
+// native equivalents of those host-side pieces; the device compute path
+// itself is JAX/XLA/Pallas. Exposed via a C ABI and loaded from
+// Python with ctypes (sphjax/utils/native.py); every entry point has a pure
 // Python fallback so the framework works without a compiler present.
 //
 // Contents:
@@ -59,7 +59,7 @@ int sph_grid_init(int n, float h, float box_dim, float *out) {
     return count;
 }
 
-// Software rasterizer matching tpusph/viz/render.py (and display.cpp:35-91).
+// Software rasterizer matching sphjax/viz/render.py (and display.cpp:35-91).
 static const int W = 800, H = 600;
 static const float NEARP = 1.0f, HALF = 2.0f;
 static const float CAM[3] = {-5.f, -5.f, -15.f};
@@ -123,7 +123,7 @@ void sph_render_frame(const float *pos, int n, uint8_t *img /* H*W*3 */) {
 }
 
 // Rasterize from DEVICE-projected packed pixel coords
-// (tpusph/viz/project.py: bit 20 = inside flag, bits 19..10 = y, 9..0 = x)
+// (sphjax/viz/project.py: bit 20 = inside flag, bits 19..10 = y, 9..0 = x)
 // — the 4-bytes-per-particle frame stream of the chunked free mode.
 void sph_render_packed(const int32_t *packed, int n, uint8_t *img) {
     std::memset(img, 0, (size_t)H * W * 3);

@@ -9,14 +9,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(
     os.environ,
     JAX_PLATFORMS="cpu",
-    TPUSPH_FORCE_CPU="1",
     XLA_FLAGS=os.environ.get("XLA_FLAGS", ""),
 )
 
 
 def run_cli(*args):
     return subprocess.run(
-        [sys.executable, "-m", "tpusph", *args],
+        [sys.executable, "-m", "sphjax", *args],
         capture_output=True,
         text=True,
         cwd=REPO,
@@ -55,15 +54,16 @@ def test_help_flag():
     assert "Number of particles to simulate" in r.stdout
 
 
-def test_stencil_and_capacity_flags():
-    """--stencil/--pallas-* reach SimConfig (run still completes on CPU)."""
-    r = run_cli(
-        "-n", "256", "-m", "time", "--steps", "2",
-        "--stencil", "hybrid", "--pallas-col-capacity", "1024",
-        "--pallas-sub-blocks", "8",
-    )
-    assert r.returncode == 0, r.stderr
-    assert "Grid construction" in r.stdout
+def test_backend_flag_choices():
+    """--backend accepts the three backends and rejects the retired ones."""
+    from sphjax.cli import build_parser
+    from sphjax.engine.step import BACKENDS
+
+    p = build_parser()
+    for name in ("auto", *BACKENDS):
+        assert p.parse_args(["--backend", name]).backend == name
+    r = run_cli("-n", "64", "--backend", "pallas")
+    assert r.returncode == 1 and "Program Options:" in r.stdout
 
 
 def test_mesh_flag_runs_dist_simulator():
@@ -73,7 +73,7 @@ def test_mesh_flag_runs_dist_simulator():
         env.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=2"
     )
     r = subprocess.run(
-        [sys.executable, "-m", "tpusph", "-n", "256", "-m", "time",
+        [sys.executable, "-m", "sphjax", "-n", "256", "-m", "time",
          "--steps", "2", "--mesh", "z"],
         capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
     )
@@ -118,7 +118,7 @@ def test_mesh_timed_report_has_build_phase(tmp_path):
     )
     ckpt = str(tmp_path / "m.npz")
     r = subprocess.run(
-        [sys.executable, "-m", "tpusph", "-n", "256", "-m", "time",
+        [sys.executable, "-m", "sphjax", "-n", "256", "-m", "time",
          "--steps", "2", "--mesh", "z", "--save", ckpt],
         capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
     )

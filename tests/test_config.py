@@ -4,8 +4,8 @@ import math
 
 import pytest
 
-from tpusph.core.config import SimConfig, default_config
-from tpusph.core.init import grid_positions, init_state
+from sphjax.core.config import SimConfig, default_config
+from sphjax.core.init import grid_positions, init_state
 
 
 def test_derived_coefficients_match_reference_formulas():
@@ -59,82 +59,3 @@ def test_config_hashable_static_under_jit():
 
     hash(cfg)  # must be hashable (jit-static requirement)
     assert cfg == default_config(64, chunk_size=64)
-
-
-def test_tuned_config_presets_and_overrides():
-    from tpusph.core.config import tuned_config, tuned_overrides
-
-    small = tuned_config(65536)
-    assert small.pallas_desc and small.pallas_desc_unroll == 4
-    assert small.force_unroll == 2 and small.pallas_force_fold
-    big = tuned_config(1_048_576)
-    assert big.pallas_stencil == "hybrid" and big.pallas_col_capacity == 32768
-    assert big.pallas_desc
-    # the pile-up tiers unroll the slow branch too (parking-padded chain);
-    # sub-1M stays plain — 100% of its subs are fast (scripts/fast_frac.py)
-    assert big.pallas_slow_unroll == 2
-    assert tuned_config(2_097_152).pallas_slow_unroll == 2
-    assert small.pallas_slow_unroll == 1
-    # 1M adopts the maskless ranged slow path + slim force layout
-    # (full-trajectory A/B 22.87->23.73 steps/s)
-    assert big.pallas_ranged_maskless and big.pallas_force_slim
-    # 4M-class: slim halves the candidate buffer so col=131072 fits scoped
-    # VMEM; the raised budget restores double-buffering (see _cand_slots)
-    huge = tuned_config(4_194_304)
-    assert huge.pallas_col_capacity == 131072
-    assert huge.pallas_force_slim and huge.pallas_stream_desc
-    assert huge.pallas_scoped_vmem_kib == 32768
-    # explicit kwargs always win over the preset
-    over = tuned_config(65536, pallas_desc=False, pallas_desc_unroll=1,
-                        pallas_desc_unroll_force=0, pallas_force_fold=False,
-                        pallas_force_lane_split=False)
-    assert not over.pallas_desc
-    assert set(tuned_overrides(100)) <= {
-        f.name for f in __import__("dataclasses").fields(small)
-    }
-
-
-def test_tuned_presets_enable_query_rank_and_padding_satisfies_gate():
-    """Every tuned tier turns the query-rank kernel on, and the padded
-    particle count is always a multiple of 256 — the qrank kernel's
-    key-padding contract (_resolve_starts falls back to the rank-sort
-    path otherwise, so the preset would silently not apply)."""
-    from tpusph.core.config import tuned_config
-
-    for n in (1, 1000, 65536, 262_144, 1_048_576, 2_097_152, 4_194_304):
-        cfg = tuned_config(n)
-        assert cfg.pallas_query_rank
-        assert cfg.padded_num_particles % 256 == 0
-
-
-def test_scoped_vmem_budget_field():
-    """pallas_scoped_vmem_kib: compiler_opts forwards the raised budget on
-    TPU only (the option name is TPU-only — CPU rejects it), and
-    _cand_slots' double-buffer threshold tracks the budget (a capacity
-    that single-slots at the 16 MiB default double-buffers at 32 MiB)."""
-    import dataclasses
-
-    import jax
-
-    from tpusph.core.config import compiler_opts, default_config
-    from tpusph.pallas.fused import _cand_slots
-
-    base = default_config(
-        512, chunk_size=512, pallas_col_capacity=49152,
-        pallas_sub_blocks=400, pallas_stencil="slab3",
-        pallas_block_lanes=128,
-    )
-    assert compiler_opts(base) is None  # default budget: no option
-    raised = dataclasses.replace(base, pallas_scoped_vmem_kib=32768)
-    opts = compiler_opts(raised)
-    if jax.default_backend() in ("cpu",):
-        assert opts is None  # TPU-only option dropped off-TPU
-    else:
-        assert opts == {"xla_tpu_scoped_vmem_limit_kib": 32768}
-    # 2x16x(3*49152+128)*4 = 18.1 MiB: >15 MiB default, <31 MiB raised
-    assert _cand_slots(base, 16) == 1
-    assert _cand_slots(raised, 16) == 2
-    import pytest
-
-    with pytest.raises(ValueError):
-        dataclasses.replace(base, pallas_scoped_vmem_kib=0).validate()

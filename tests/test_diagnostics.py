@@ -3,10 +3,10 @@
 import jax
 import numpy as np
 
-from tpusph.bench.diagnostics import compute_diagnostics, format_diagnostics
-from tpusph.core.config import default_config
-from tpusph.core.init import init_state
-from tpusph.engine.step import make_step
+from sphjax.bench.diagnostics import compute_diagnostics, format_diagnostics
+from sphjax.core.config import default_config
+from sphjax.core.init import init_state
+from sphjax.engine.step import make_step
 
 
 def test_diagnostics_values():

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from tpusph.bench.times import Times
-from tpusph.core.config import default_config
-from tpusph.dist.simulator import DistSimulator
-from tpusph.engine.simulator import Simulator
+from sphjax.bench.times import Times
+from sphjax.core.config import default_config
+from sphjax.dist.simulator import DistSimulator
+from sphjax.engine.simulator import Simulator
 
 pytestmark = pytest.mark.slow
 
@@ -51,7 +51,7 @@ def test_dist_simulate_and_time(eight_devices):
 
 
 def test_dist_capacity_growth(eight_devices):
-    from tpusph.dist.sharded import DistConfig
+    from sphjax.dist.sharded import DistConfig
 
     cfg = default_config(512, chunk_size=512)
     tiny = DistConfig(
@@ -85,7 +85,7 @@ def test_dist_run_matches_stepwise(eight_devices):
 def test_dist_run_capacity_growth(eight_devices):
     """Overflow inside a scan chunk must re-run the chunk from its initial
     state with grown capacities (physics never degraded)."""
-    from tpusph.dist.sharded import DistConfig
+    from sphjax.dist.sharded import DistConfig
 
     cfg = default_config(512, chunk_size=512)
     tiny = DistConfig(
@@ -109,8 +109,8 @@ def test_dist_checkpoint_roundtrip(eight_devices):
     trajectory equals the uninterrupted one."""
     from jax.sharding import Mesh
 
-    from tpusph.core.io import load_dist_state, save_dist_state
-    from tpusph.dist.sharded import make_sharded_run
+    from sphjax.core.io import load_dist_state, save_dist_state
+    from sphjax.dist.sharded import make_sharded_run
 
     import numpy as _np
 
@@ -132,7 +132,7 @@ def test_dist_checkpoint_roundtrip(eight_devices):
         assert int(aux.num_particles) == cfg.num_particles
 
     sim.run(2)  # uninterrupted continuation
-    from tpusph.dist.sharded import collect_state
+    from sphjax.dist.sharded import collect_state
 
     got = collect_state(resumed, cfg.num_particles)["position"]
     np.testing.assert_allclose(

@@ -2,40 +2,30 @@
 compare against stored state snapshots. Regenerate with
 `python tests/test_golden.py` after an *intentional* physics change.
 
-Three goldens: random init + cell_list (the original), grid init + cell_list
-(the reference's default -i mode), and random init + pallas interpret (pins
-the megakernel math, not just the XLA tile path)."""
+Two goldens: random init + cell_list (the original) and grid init +
+cell_list (the reference's default -i mode). The Triton pair-pass backend
+(interpret mode) must reproduce the random-init golden too — it pins the
+kernel math to the same trajectory, not just the XLA tile path."""
 
 import os
 
 import numpy as np
-import pytest
 
-from tpusph.core.config import default_config
-from tpusph.core.init import init_state
-from tpusph.engine.step import make_step, step_pallas
+from sphjax.core.config import default_config
+from sphjax.core.init import init_state
+from sphjax.engine.step import make_step, step_pallas_triton
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 STEPS = 15
 
 
-def _cfg(pallas: bool = False):
-    if pallas:
-        # small capacities: the interpreter executes every predicated block
-        return default_config(
-            256, chunk_size=256, pallas_col_capacity=512, pallas_sub_blocks=4,
-            pallas_block_lanes=128,
-        )
-    return default_config(256, chunk_size=256)
-
-
 def _run(init: str = "random", backend: str = "cell_list"):
-    cfg = _cfg(pallas=(backend == "pallas"))
+    cfg = default_config(256, chunk_size=256)
     st = init_state(cfg, random_init=(init == "random"), seed=42)
-    if backend == "pallas":
+    if backend == "pallas_triton":
         import jax
 
-        step = jax.jit(lambda s: step_pallas(s, cfg, interpret=True))
+        step = jax.jit(lambda s: step_pallas_triton(s, cfg, interpret=True))
     else:
         step = make_step(cfg, backend)
     for _ in range(STEPS):
@@ -52,7 +42,6 @@ def _run(init: str = "random", backend: str = "cell_list"):
 CASES = {
     "traj_rand256_15.npz": dict(init="random", backend="cell_list"),
     "traj_grid256_15.npz": dict(init="grid", backend="cell_list"),
-    "traj_rand256_15_pallas.npz": dict(init="random", backend="pallas"),
 }
 
 
@@ -76,9 +65,8 @@ def test_golden_trajectory_grid_init():
     _check("traj_grid256_15.npz", **CASES["traj_grid256_15.npz"])
 
 
-@pytest.mark.slow
-def test_golden_trajectory_pallas_interpret():
-    _check("traj_rand256_15_pallas.npz", **CASES["traj_rand256_15_pallas.npz"])
+def test_golden_trajectory_triton_kernels_interpret():
+    _check("traj_rand256_15.npz", init="random", backend="pallas_triton")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from tpusph.core.config import default_config
-from tpusph.core.init import grid_positions, init_state, random_positions
+from sphjax.core.config import default_config
+from sphjax.core.init import grid_positions, init_state, random_positions
 
 
 def test_grid_lattice_spacing_and_origin():
@@ -48,7 +48,7 @@ def test_lattice_capacity_is_the_grid_init_boundary():
     CLI/bench random-init fallback threshold (simulator.cu:438-453 math)."""
     import pytest
 
-    from tpusph.core.init import lattice_capacity
+    from sphjax.core.init import lattice_capacity
 
     cap = lattice_capacity(default_config(1000))
     assert cap == 109**3  # 0.9h lattice in the 10^3 box

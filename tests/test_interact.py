@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpusph.core.config import BOX_MAX_X, BOX_MAX_Y, BOX_MIN_X, BOX_MIN_Y, default_config
-from tpusph.core.state import make_state
-from tpusph.interact.impulse import (
+from sphjax.core.config import BOX_MAX_X, BOX_MAX_Y, BOX_MIN_X, BOX_MIN_Y, default_config
+from sphjax.core.state import make_state
+from sphjax.interact.impulse import (
     _slab_multiplicity,
     apply_click_impulse,
     click_in_box,

@@ -1,11 +1,11 @@
-"""Checkpoint/resume round-trip (SURVEY.md §5 TPU-era extension)."""
+"""Checkpoint/resume round-trip (SURVEY.md §5 extension)."""
 
 import numpy as np
 
-from tpusph.core.config import default_config
-from tpusph.core.init import init_state
-from tpusph.core.io import load_state, save_state
-from tpusph.engine.step import make_step
+from sphjax.core.config import default_config
+from sphjax.core.init import init_state
+from sphjax.core.io import load_state, save_state
+from sphjax.engine.step import make_step
 
 
 def test_checkpoint_roundtrip(tmp_path):

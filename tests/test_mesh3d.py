@@ -6,16 +6,16 @@ import jax
 import numpy as np
 import pytest
 
-from tpusph.core.config import default_config
-from tpusph.core.init import init_state
-from tpusph.dist.mesh3d import (
+from sphjax.core.config import default_config
+from sphjax.core.init import init_state
+from sphjax.dist.mesh3d import (
     Mesh3DConfig,
     distribute_state_3d,
     make_mesh,
     make_mesh3d_step,
 )
-from tpusph.dist.sharded import collect_state
-from tpusph.engine.step import make_step
+from sphjax.dist.sharded import collect_state
+from sphjax.engine.step import make_step
 
 pytestmark = pytest.mark.slow
 
@@ -116,7 +116,7 @@ def test_mesh3d_click_matches_single_chip(setup, eight_devices):
     click = (400, 300)
     single = make_step(cfg, "cell_list")
     s1, _ = single(st)
-    from tpusph.interact.impulse import apply_click_impulse
+    from sphjax.interact.impulse import apply_click_impulse
 
     s1 = apply_click_impulse(s1, st.position, np.asarray(click, np.int32), cfg)
     dstate, _ = _run(cfg, st, eight_devices, (2, 2, 2), 1, click=click)
@@ -151,7 +151,7 @@ def test_mesh3d_balanced_planes_match_single_device(setup, eight_devices):
     advance identical physics to the single-chip engine, with migration
     traffic crossing the plane faces on every axis."""
     cfg, st = setup
-    from tpusph.dist.mesh3d import balanced_brick_planes, brick_owner
+    from sphjax.dist.mesh3d import balanced_brick_planes, brick_owner
 
     # diagonal drift so all three axes see real migration + halo traffic
     vel = np.zeros((st.num_slots, 3), np.float32)

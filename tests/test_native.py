@@ -6,14 +6,14 @@ import ctypes.util
 import numpy as np
 import pytest
 
-from tpusph.core.config import default_config
-from tpusph.core.init import grid_positions
-from tpusph.utils.native import (
+from sphjax.core.config import default_config
+from sphjax.core.init import grid_positions
+from sphjax.utils.native import (
     get_lib,
     reference_random_positions,
     render_frame_native,
 )
-from tpusph.viz.render import _render_frame_numpy
+from sphjax.viz.render import _render_frame_numpy
 
 pytestmark = pytest.mark.skipif(get_lib() is None, reason="native lib unavailable")
 
@@ -57,8 +57,8 @@ def test_native_packed_render_matches_numpy():
     with the numpy fallback pixel-for-pixel on particle pixels."""
     import jax.numpy as jnp
 
-    from tpusph.utils.native import render_packed_native
-    from tpusph.viz.project import project_pixels_packed
+    from sphjax.utils.native import render_packed_native
+    from sphjax.viz.project import project_pixels_packed
 
     rng = np.random.default_rng(2)
     pos = rng.uniform(-1, 11, size=(300, 3)).astype(np.float32)
@@ -66,8 +66,8 @@ def test_native_packed_render_matches_numpy():
     a = render_packed_native(packed)
 
     # numpy path, bypassing the native dispatch inside render_frame_packed
-    from tpusph.viz.render import _wireframe_layer
-    from tpusph.viz.project import PACK_INSIDE
+    from sphjax.viz.render import _wireframe_layer
+    from sphjax.viz.project import PACK_INSIDE
 
     img = _wireframe_layer().copy()
     p = packed[(packed & PACK_INSIDE) != 0]

@@ -1,14 +1,14 @@
 """Neighbor-structure tests: cell keys, sorted cell ranges,
 window candidate generation, and the all-pairs ≡ cell-list invariant
-(SURVEY.md §4b/d — the TPU analog of printGridList's occupancy audit)."""
+(SURVEY.md §4b/d — the analog of printGridList's occupancy audit)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from tpusph.core.config import default_config
-from tpusph.core.init import init_state
-from tpusph.neighbors.cell_list import build_cell_list, window_candidates
-from tpusph.neighbors.grid import cell_coords, compute_keys, flatten_rowmajor
+from sphjax.core.config import default_config
+from sphjax.core.init import init_state
+from sphjax.neighbors.cell_list import build_cell_list, window_candidates
+from sphjax.neighbors.grid import cell_coords, compute_keys, flatten_rowmajor
 
 
 
@@ -105,7 +105,7 @@ def test_starts_table_semantics():
     key = jnp.asarray(
         rng.integers(0, cfg.num_cells + 1, size=737), jnp.int32
     )
-    from tpusph.neighbors.cell_list import starts_table
+    from sphjax.neighbors.cell_list import starts_table
 
     a = np.asarray(jax.jit(lambda k: starts_table(k, cfg))(key))
     ref = np.array(

@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpusph.core.config import default_config
-from tpusph.physics.kernels import (
+from sphjax.core.config import default_config
+from sphjax.physics.kernels import (
     pair_density,
     poly6,
     pressure_from_density,
     spiky_grad,
     viscosity_lap,
 )
-from tpusph.physics.integrate import integrate
+from sphjax.physics.integrate import integrate
 
 CFG = default_config(8)
 H = CFG.h

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from tpusph.bench.times import Times, format_times
-from tpusph.core.config import default_config
-from tpusph.engine.simulator import Simulator
-from tpusph.viz.render import render_frame
+from sphjax.bench.times import Times, format_times
+from sphjax.core.config import default_config
+from sphjax.engine.simulator import Simulator
+from sphjax.viz.render import render_frame
 
 
 def test_simulate_and_get_position():
@@ -59,7 +59,7 @@ def test_timed_retry_excludes_failed_attempt(monkeypatch):
     overflowing first attempt would leave build_grid == sph_update == 2.0."""
     import itertools
 
-    import tpusph.engine.simulator as sim_mod
+    import sphjax.engine.simulator as sim_mod
 
     cfg = default_config(512, chunk_size=512, tile_cand_capacity=64)
     sim = Simulator(cfg)
@@ -115,7 +115,7 @@ def test_free_mode_pipelined_frames_match_sequential(tmp_path):
     """The double-buffered free-mode loop must produce byte-identical frames
     to the sequential simulate→fetch→render loop (same trajectory, same
     per-frame positions — only the overlap schedule differs)."""
-    from tpusph.viz.render import render_frame, run_free_mode
+    from sphjax.viz.render import render_frame, run_free_mode
 
     cfg = default_config(128, chunk_size=128)
     clicks = {1: (400, 300)}
@@ -128,7 +128,7 @@ def test_free_mode_pipelined_frames_match_sequential(tmp_path):
         f"frame_{k:05d}.png" for k in range(4)
     ]
 
-    from tpusph.viz.render import save_png
+    from sphjax.viz.render import save_png
 
     ref = Simulator(cfg, random_init=True, seed=4)
     ref.setup()
@@ -176,14 +176,14 @@ def test_chunked_positions_match_sequential():
 
 
 def test_chunked_free_mode_frames_match_sequential(tmp_path, monkeypatch):
-    """TPUSPH_VIZ_CHUNK=3 over 7 frames (uneven tail chunk) with a scripted
+    """SPHJAX_VIZ_CHUNK=3 over 7 frames (uneven tail chunk) with a scripted
     click must write byte-identical frames to the sequential loop."""
-    from tpusph.viz.render import render_frame, run_free_mode, save_png
+    from sphjax.viz.render import render_frame, run_free_mode, save_png
 
     cfg = default_config(128, chunk_size=128)
     clicks = {1: (400, 300), 4: (350, 250)}
 
-    monkeypatch.setenv("TPUSPH_VIZ_CHUNK", "3")
+    monkeypatch.setenv("SPHJAX_VIZ_CHUNK", "3")
     sim = Simulator(cfg, random_init=True, seed=4)
     sim.setup()
     out = tmp_path / "frames"
@@ -229,8 +229,8 @@ def test_device_projection_matches_host():
     inside-frame mask and int truncation."""
     import jax.numpy as jnp
 
-    from tpusph.viz.project import PACK_INSIDE, project_pixels_packed
-    from tpusph.viz.render import HEIGHT, NEAR, WIDTH, project
+    from sphjax.viz.project import PACK_INSIDE, project_pixels_packed
+    from sphjax.viz.render import HEIGHT, NEAR, WIDTH, project
 
     rng = np.random.default_rng(3)
     pos = rng.uniform(-2.0, 12.0, size=(4096, 3)).astype(np.float32)
@@ -257,8 +257,8 @@ def test_bitmap_frame_matches_packed():
     so the 60 KB N-independent bitmap loses nothing."""
     import jax.numpy as jnp
 
-    from tpusph.viz.project import project_bitmap, project_pixels_packed
-    from tpusph.viz.render import render_frame_bitmap, render_frame_packed
+    from sphjax.viz.project import project_bitmap, project_pixels_packed
+    from sphjax.viz.render import render_frame_bitmap, render_frame_packed
 
     rng = np.random.default_rng(5)
     pos = rng.uniform(-2.0, 12.0, size=(4096, 3)).astype(np.float32)
@@ -276,8 +276,8 @@ def test_chunked_bitmap_stream_matches_sequential():
     free-mode path at the headline N ships these 60 KB frames)."""
     import jax.numpy as jnp
 
-    from tpusph.viz.project import project_bitmap
-    from tpusph.viz.render import render_frame_bitmap, render_frame
+    from sphjax.viz.project import project_bitmap
+    from sphjax.viz.render import render_frame_bitmap, render_frame
 
     cfg = default_config(512, chunk_size=512)
     sim = Simulator(cfg)

@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 
 from tests.oracle_numpy import oracle_step
-from tpusph.core.config import default_config
-from tpusph.core.init import init_state
-from tpusph.engine.step import make_step
+from sphjax.core.config import default_config
+from sphjax.core.init import init_state
+from sphjax.engine.step import make_step
 
 
 @pytest.fixture(scope="module", params=["grid", "random"])

@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from tpusph.core.config import default_config
-from tpusph.engine.simulator import Simulator
+from sphjax.core.config import default_config
+from sphjax.engine.simulator import Simulator
 
 
 def _make_sim(n=128):
@@ -22,7 +22,7 @@ def _make_sim(n=128):
 def test_interactive_fallback_without_display(monkeypatch, capsys):
     """Headless host (no DISPLAY): _run_interactive must print the
     use---frames hint and return instead of crashing."""
-    from tpusph.viz.render import _run_interactive
+    from sphjax.viz.render import _run_interactive
 
     monkeypatch.delenv("DISPLAY", raising=False)
     _run_interactive(_make_sim())
@@ -34,18 +34,18 @@ def test_interactive_fallback_without_display(monkeypatch, capsys):
 @pytest.mark.parametrize("depth", [1, 2])
 def test_interactive_pipelined_matches_sync(monkeypatch, depth):
     """The pipelined interactive tick (default) must run the exact same
-    step+click trajectory as the synchronous tick (TPUSPH_VIZ_SYNC=1), with
+    step+click trajectory as the synchronous tick (SPHJAX_VIZ_SYNC=1), with
     the displayed image lagging the physics by exactly `depth` frames."""
     import matplotlib
 
     matplotlib.use("Agg", force=True)
     import matplotlib.pyplot as plt
 
-    from tpusph.viz.render import _build_interactive
+    from sphjax.viz.render import _build_interactive
 
     click_at = {1: (400, 300)}
 
-    monkeypatch.setenv("TPUSPH_VIZ_SYNC", "1")
+    monkeypatch.setenv("SPHJAX_VIZ_SYNC", "1")
     ref = _make_sim()
     fig_r, tick_r, pend_r = _build_interactive(ref)
     ref_frames = []
@@ -55,8 +55,8 @@ def test_interactive_pipelined_matches_sync(monkeypatch, depth):
         ref_frames.append(np.asarray(im_r.get_array()).copy())
     plt.close(fig_r)
 
-    monkeypatch.delenv("TPUSPH_VIZ_SYNC")
-    monkeypatch.setenv("TPUSPH_VIZ_DEPTH", str(depth))
+    monkeypatch.delenv("SPHJAX_VIZ_SYNC")
+    monkeypatch.setenv("SPHJAX_VIZ_DEPTH", str(depth))
     sim = _make_sim()
     fig, tick, pending = _build_interactive(sim)
     try:
@@ -85,7 +85,7 @@ def test_interactive_tick_under_agg():
     matplotlib.use("Agg", force=True)
     import matplotlib.pyplot as plt
 
-    from tpusph.viz.render import _build_interactive
+    from sphjax.viz.render import _build_interactive
 
     sim = _make_sim()
     p0 = sim.get_position().copy()
